@@ -4,8 +4,8 @@ import json
 
 import pytest
 
-from hmrt_tpu.bench.configs import BENCH_CONFIGS, bench_scene
-from hmrt_tpu.bench.runner import run_bench
+from hmrt.bench.configs import BENCH_CONFIGS, bench_scene
+from hmrt.bench.runner import run_bench
 
 
 def test_all_five_configs_pinned():
@@ -23,7 +23,7 @@ def test_b1_smoke_metric_row():
     row = run_bench("B1", frames=2, scale=0.125, reps=1)
     # schema per BASELINE.json:2 (SURVEY.md section 5 observability)
     for key in ("config", "resolution", "map", "chips", "ms_per_frame",
-                "fps", "mrays_per_s", "backend"):
+                "fps", "mrays_per_s", "platform"):
         assert key in row, key
     assert row["config"] == "B1"
     assert row["ms_per_frame"] > 0
@@ -39,8 +39,7 @@ def test_bench_scene_textured():
 
 def test_runner_out_file_persists_row(tmp_path):
     """--out persistence: the row must be on disk the moment timing lands,
-    so bench.py's per-config deadline can never lose a measurement
-    (VERDICT r3 next #2c)."""
+    so bench.py's per-config deadline can never lose a measurement."""
     out = tmp_path / "row.json"
     row = run_bench("B1", frames=2, scale=0.125, reps=1,
                     out_path=str(out))
@@ -49,33 +48,26 @@ def test_runner_out_file_persists_row(tmp_path):
     assert on_disk["ms_per_frame"] == pytest.approx(row["ms_per_frame"])
 
 
-def test_floor_metrics_small_scene():
-    """Floor metrics (VERDICT r3 next #3): lane-steps measured by the
-    march debug counters, with the derived architectural-floor numbers."""
-    from hmrt_tpu.api.scene import make_scene
-    from hmrt_tpu.bench.floor import floor_metrics
-    from hmrt_tpu.config import RenderConfig
-    from hmrt_tpu.io.heightmap import procedural_terrain
-    from hmrt_tpu.types import Camera
+def test_runner_main_refuses_without_gpu():
+    """The benchmark measures a GPU: with none, its entry point exits
+    non-zero instead of timing the CPU under a device metric's name."""
+    from hmrt.bench.runner import main
+    with pytest.raises(SystemExit) as e:
+        main(["B1", "--scale", "0.125", "--frames", "1", "--reps", "1"])
+    assert "GPU" in str(e.value.code)
 
-    terr = procedural_terrain(128, seed=3)
-    scene = make_scene(terr)
-    cam = Camera.create(eye=(64, -42, float(terr.max()) + 21),
-                        target=(64, 64, float(terr.mean())))
-    cfg = RenderConfig(width=128, height=32, shading="phong", shadows=True)
-    m = floor_metrics(scene, cam, cfg, measured_ms=100.0)
-    assert m["lane_steps_per_frame"] > 0
-    assert (m["lane_steps_per_frame"]
-            == m["lane_steps_primary"] + m["lane_steps_shadow"])
-    assert m["lane_steps_shadow"] > 0  # shadows marched
-    assert m["x_architectural_floor"] > 0
-    assert m["vec_ops_per_lane_step"] > 0
-    json.dumps(m)
+
+def test_row_names_its_device():
+    row = run_bench("B1", frames=1, scale=0.125, reps=1)
+    for key in ("platform", "device_kind", "device_count", "card",
+                "xla_flags", "ms_per_frame_max"):
+        assert key in row, key
+    assert row["platform"] == "cpu" and row["card"] is None
 
 
 def test_bench_cli_emit_schema():
-    """bench.py's emitted line schema: metric/value/unit/vs_baseline, and
-    the CPU-fallback B3 metric name is unmistakably not a hardware row."""
+    """bench.py's emitted line schema: metric/value/unit/detail, with the
+    card count in B3's metric name; there is no CPU fallback line."""
     import importlib.util
     import os
     spec = importlib.util.spec_from_file_location(
@@ -83,11 +75,11 @@ def test_bench_cli_emit_schema():
                                    "bench.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    row = {"ms_per_frame": 2000.0}
+    row = {"ms_per_frame": 2000.0, "chips": 1}
     line = mod.emit("B3", row)
-    assert line["metric"].endswith("_1chip")
-    assert line["vs_baseline"] == pytest.approx(125.0)
-    line = mod.emit("B3", row, fallback=True)
-    assert "CPU_FALLBACK_NOT_HARDWARE" in line["metric"]
+    assert line["metric"].endswith("_1card")
+    assert line["value"] == 2000.0 and line["detail"] is row
+    assert "vs_baseline" not in line
+    assert not hasattr(mod, "probe_backend")
     line = mod.emit("B2", row)
     assert line["metric"] == "ms_per_frame_B2"

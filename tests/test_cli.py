@@ -5,9 +5,9 @@ view (HTML + APNG), tiled render — tiny scenes on the oracle/CPU path.
 import numpy as np
 import pytest
 
-from hmrt_tpu.cli.render import main as render_main
-from hmrt_tpu.cli.view import main as view_main
-from hmrt_tpu.io.image import read_png
+from hmrt.cli.render import main as render_main
+from hmrt.cli.view import main as view_main
+from hmrt.io.image import read_png
 
 
 def test_render_cli_png(tmp_path):
@@ -52,7 +52,7 @@ def test_render_cli_tiled_flythrough(tmp_path):
 
 
 def test_render_cli_albedo(tmp_path):
-    from hmrt_tpu.io.image import write_png
+    from hmrt.io.image import write_png
 
     rng = np.random.default_rng(4)
     tex = rng.uniform(0.0, 1.0, (40, 40, 3)).astype(np.float32)
@@ -66,8 +66,8 @@ def test_render_cli_albedo(tmp_path):
 
 
 def test_load_texture_resample(tmp_path):
-    from hmrt_tpu.io.heightmap import load_texture
-    from hmrt_tpu.io.image import write_png
+    from hmrt.io.heightmap import load_texture
+    from hmrt.io.image import write_png
 
     tex = np.zeros((16, 16, 3), np.float32)
     tex[:, :, 0] = 1.0  # constant red resamples exactly
@@ -82,8 +82,8 @@ def test_load_texture_resample(tmp_path):
 def test_load_texture_gray_alpha(tmp_path):
     """A gray+alpha PNG must expand to RGB (alpha dropped), not pass
     through as an (N, N, 2) array that breaks albedo packing later."""
-    from hmrt_tpu.io.heightmap import load_texture
-    from hmrt_tpu.io.image import write_png
+    from hmrt.io.heightmap import load_texture
+    from hmrt.io.image import write_png
 
     ga = np.zeros((8, 8, 2), np.float32)
     ga[:, :, 0] = 0.5
@@ -97,7 +97,7 @@ def test_load_texture_gray_alpha(tmp_path):
 
 def test_load_texture_via_pillow(tmp_path):
     PIL = pytest.importorskip("PIL.Image")
-    from hmrt_tpu.io.heightmap import load_heightmap, load_texture
+    from hmrt.io.heightmap import load_heightmap, load_texture
 
     rng = np.random.default_rng(6)
     img = rng.integers(0, 255, (20, 20, 3), dtype=np.uint8)

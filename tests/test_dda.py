@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hmrt_tpu.traversal.march import (
+from hmrt.traversal.march import (
     entry_cell, ray_box_range, step_geometry)
 
 

@@ -4,11 +4,11 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from hmrt_tpu.api.flythrough import (flythrough, frame_camera,
+from hmrt.api.flythrough import (flythrough, frame_camera,
                                      orbit_flythrough)
-from hmrt_tpu.bench.timing import _scan_frames
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.core.renderer import render_frame
+from hmrt.bench.timing import _scan_frames
+from hmrt.config import RenderConfig
+from hmrt.core.renderer import render_frame
 
 
 def test_flythrough_passes_through_keyframes():
@@ -33,8 +33,8 @@ def test_frame_camera_indexing():
 def test_animation_scan_runs(scene64):
     cams = orbit_flythrough(64, zmax=float(np.asarray(scene64.heights).max()),
                             n_frames=3)
-    cfg = RenderConfig(width=32, height=16, backend="oracle")
-    acc = _scan_frames(scene64, cams, jnp.zeros(3, jnp.float32), cfg, 3)
+    cfg = RenderConfig(width=32, height=16)
+    acc = _scan_frames(scene64, cams, cfg, 3)
     assert np.isfinite(float(acc))
     # animated frames differ
     f0 = render_frame(scene64, frame_camera(cams, 0), cfg)

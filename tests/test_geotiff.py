@@ -8,8 +8,8 @@ import zlib
 import numpy as np
 import pytest
 
-from hmrt_tpu.io.geotiff import read_tiff_gray
-from hmrt_tpu.io.heightmap import load_heightmap
+from hmrt.io.geotiff import read_tiff_gray
+from hmrt.io.heightmap import load_heightmap
 
 
 def _write_tiff(path, img, *, comp=1, tiled=False, predictor=1,
@@ -224,7 +224,7 @@ def test_bigtiff(tmp_path, dem):
 
 
 def test_packbits_decoder():
-    from hmrt_tpu.io.geotiff import _packbits_decode
+    from hmrt.io.geotiff import _packbits_decode
 
     # literal run of 3, replicate 'x' 4 times, literal 1
     enc = bytes([2]) + b"abc" + bytes([253]) + b"x" + bytes([0]) + b"z"

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hmrt_tpu.traversal.intersect import (
+from hmrt.traversal.intersect import (
     intersect_bilinear, intersect_flat, intersect_triangles, BIG_T)
 
 

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hmrt_tpu.io import image as im
-from hmrt_tpu.io.heightmap import load_heightmap, procedural_terrain
+from hmrt.io import image as im
+from hmrt.io.heightmap import load_heightmap, procedural_terrain
 
 
 def test_png_roundtrip_rgb(tmp_path):
@@ -194,8 +194,8 @@ def test_procedural_native_matches_numpy(monkeypatch):
     """The native fBm evaluator (io/native terrain_fbm) is BIT-identical
     to the numpy spec — same f64 interpolation, one f32 rounding per
     octave (odd size exercises the non-exact linspace step)."""
-    import hmrt_tpu.io.heightmap as hm
-    import hmrt_tpu.io.native as nat
+    import hmrt.io.heightmap as hm
+    import hmrt.io.native as nat
     if nat.get_lib() is None:
         pytest.skip("native lib unavailable")
     a = hm.procedural_terrain(257, seed=5)

@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hmrt_tpu.api.scene import make_scene
-from hmrt_tpu.io.heightmap import procedural_terrain
-from hmrt_tpu.traversal.march import march_dda, march_maxmip
+from hmrt.api.scene import make_scene
+from hmrt.io.heightmap import procedural_terrain
+from hmrt.traversal.march import march_dda, march_maxmip
 
 from conftest import random_rays
 

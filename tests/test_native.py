@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from hmrt_tpu.io import image as im
-from hmrt_tpu.io import native
-from hmrt_tpu.core import pyramid as pyr
-from hmrt_tpu.io.heightmap import procedural_terrain
+from hmrt.io import image as im
+from hmrt.io import native
+from hmrt.core import pyramid as pyr
+from hmrt.io.heightmap import procedural_terrain
 
 needs_native = pytest.mark.skipif(native.get_lib() is None,
                                   reason="native toolchain unavailable")

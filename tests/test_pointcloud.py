@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from hmrt_tpu.io import image as im
-from hmrt_tpu.io.pointcloud import grid_points, load_points
+from hmrt.io import image as im
+from hmrt.io.pointcloud import grid_points, load_points
 
 
 def test_grid_points_max_and_mean():
@@ -37,7 +37,7 @@ def test_load_points_text_and_npy(tmp_path):
 
 
 def test_pointcloud_through_loader(tmp_path):
-    from hmrt_tpu.io.heightmap import load_heightmap
+    from hmrt.io.heightmap import load_heightmap
     rng = np.random.default_rng(1)
     pts = rng.uniform(0, 50, (2000, 3)).astype(np.float32)
     p = str(tmp_path / "cloud.xyz")

@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hmrt_tpu.core import pyramid as pyr
-from hmrt_tpu.io.heightmap import procedural_terrain
+from hmrt.core import pyramid as pyr
+from hmrt.io.heightmap import procedural_terrain
 
 
 @pytest.mark.parametrize("n", [8, 33, 64, 100])

@@ -1,17 +1,12 @@
 """End-to-end oracle renderer tests + golden images (SURVEY.md 4.1, 4.3)."""
 
-import os
-
 import numpy as np
-import pytest
 
-from hmrt_tpu.api.scene import make_scene
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.core.renderer import render_frame
-from hmrt_tpu.io.heightmap import procedural_terrain
-from hmrt_tpu.types import Camera
-
-GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "golden")
+from hmrt.api.scene import make_scene
+from hmrt.bench.goldens import golden_diff, golden_render
+from hmrt.config import RenderConfig
+from hmrt.core.renderer import render_frame
+from hmrt.types import Camera
 
 
 def test_maxmip_render_equals_dda_render(scene64, camera64):
@@ -52,69 +47,28 @@ def test_textured_render(terrain64, camera64):
     assert np.abs(img - np.asarray(fr2.color)).max() > 0.01
 
 
-def test_golden_image_b1():
-    """64x64 golden render of the B1-style scene, byte-stable (SURVEY.md 4.3)."""
-    h = procedural_terrain(64, seed=3)
-    sc = make_scene(h)
-    cam = Camera.create(eye=(32.0, -20.0, float(h.max()) + 12.0),
-                        target=(32.0, 32.0, float(h.mean())))
-    cfg = RenderConfig(width=64, height=64, traversal="maxmip",
-                       shading="lambert")
-    fr = render_frame(sc, cam, cfg)
-    img = (np.clip(np.asarray(fr.color), 0, 1) * 255 + 0.5).astype(np.uint8)
-    path = os.path.join(GOLDEN_DIR, "b1_64.npy")
-    if not os.path.exists(path):
-        os.makedirs(GOLDEN_DIR, exist_ok=True)
-        np.save(path, img)
-        pytest.skip("golden image written; rerun to compare")
-    golden = np.load(path)
+def _golden_check(name):
     # allow 1-bit quantization wiggle across backends/compilers
-    diff = np.abs(img.astype(int) - golden.astype(int))
-    assert (diff <= 1).all(), f"golden mismatch: max diff {diff.max()}, {(diff > 1).sum()} px"
-
-
-def _golden_check(img_u8, fname):
-    path = os.path.join(GOLDEN_DIR, fname)
-    if not os.path.exists(path):
-        os.makedirs(GOLDEN_DIR, exist_ok=True)
-        np.save(path, img_u8)
-        pytest.skip("golden image written; rerun to compare")
-    golden = np.load(path)
-    # allow 1-bit quantization wiggle across backends/compilers
-    diff = np.abs(img_u8.astype(int) - golden.astype(int))
+    diff = golden_diff(name, golden_render(name))
     assert (diff <= 1).all(), \
         f"golden mismatch: max diff {diff.max()}, {(diff > 1).sum()} px"
+
+
+def test_golden_image_b1():
+    """64x64 golden render of the B1-style scene, byte-stable (SURVEY.md 4.3)."""
+    _golden_check("b1")
 
 
 def test_golden_image_b2_style():
     """64x64 golden of the B2 feature set: max-mip + depth/normal aux
     buffers (BASELINE.json:8); depth golden checked alongside color."""
-    h = procedural_terrain(64, seed=3)
-    sc = make_scene(h)
-    cam = Camera.create(eye=(32.0, -20.0, float(h.max()) + 12.0),
-                        target=(32.0, 32.0, float(h.mean())))
-    cfg = RenderConfig(width=64, height=64, traversal="maxmip",
-                       shading="lambert", aux_buffers=True)
-    fr = render_frame(sc, cam, cfg)
-    img = (np.clip(np.asarray(fr.color), 0, 1) * 255 + 0.5).astype(np.uint8)
-    depth = np.asarray(fr.depth)
-    dn = (np.clip(np.where(np.isfinite(depth), depth, 0.0) / 128.0, 0, 1)
-          * 255 + 0.5).astype(np.uint8)
-    _golden_check(np.concatenate([img, dn[:, :, None]], axis=-1), "b2_64.npy")
+    _golden_check("b2")
 
 
 def test_golden_image_b3_style():
     """64x64 golden of the B3 feature set: shadows + Phong + sky early-out
     (BASELINE.json:9)."""
-    h = procedural_terrain(64, seed=3)
-    sc = make_scene(h)
-    cam = Camera.create(eye=(32.0, -20.0, float(h.max()) + 12.0),
-                        target=(32.0, 32.0, float(h.mean())))
-    cfg = RenderConfig(width=64, height=64, traversal="maxmip",
-                       shading="phong", shadows=True)
-    fr = render_frame(sc, cam, cfg)
-    img = (np.clip(np.asarray(fr.color), 0, 1) * 255 + 0.5).astype(np.uint8)
-    _golden_check(img, "b3_64.npy")
+    _golden_check("b3")
 
 
 def test_camera_rays_unit_and_fov():

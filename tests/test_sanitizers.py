@@ -14,9 +14,9 @@ import numpy as np
 import pytest
 from jax.experimental import checkify
 
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.core.renderer import render_frame_oracle
-from hmrt_tpu.types import Camera
+from hmrt.config import RenderConfig
+from hmrt.core.renderer import render_frame_oracle
+from hmrt.types import Camera
 
 HOSTILE_CAMERAS = [
     # under the terrain, looking up

@@ -1,8 +1,8 @@
 """Interactive viewer server (cli/serve.py): handlers + HTTP round trip.
 
 The reference app's interactive window (SURVEY.md C2/C8/L5) maps to a
-localhost HTTP fly-camera; this drives it end-to-end on the oracle
-backend with a tiny scene.
+localhost HTTP fly-camera; this drives it end-to-end on the CPU with a
+tiny scene.
 """
 
 import io
@@ -14,16 +14,16 @@ import urllib.request
 import numpy as np
 import pytest
 
-import hmrt_tpu as H
-from hmrt_tpu.cli.serve import ViewerSession, make_handler
-from hmrt_tpu.io.image import read_png
+import hmrt as H
+from hmrt.cli.serve import ViewerSession, make_handler
+from hmrt.io.image import read_png
 
 
 @pytest.fixture(scope="module")
 def session():
     terr = H.procedural_terrain(64, seed=3)
-    scene = H.make_scene(terr, pack=False)
-    cfg = H.RenderConfig(width=96, height=64, backend="oracle")
+    scene = H.make_scene(terr)
+    cfg = H.RenderConfig(width=96, height=64)
     n = terr.shape[0]
     return ViewerSession(scene, cfg,
                          eye=(n * 0.5, -n * 0.2, float(terr.max()) + 6.0),
@@ -63,7 +63,7 @@ def test_http_round_trip(session):
     try:
         base = f"http://127.0.0.1:{port}"
         page = urllib.request.urlopen(base + "/", timeout=30).read()
-        assert b"hmrt_tpu viewer" in page
+        assert b"hmrt viewer" in page
         state = json.loads(
             urllib.request.urlopen(base + "/state", timeout=30).read())
         assert len(state["eye"]) == 3
@@ -105,16 +105,16 @@ def test_bad_requests(session):
 def test_tiled_viewer_session():
     """Out-of-core viewer mode: frames stream through api.tiled with the
     scene cache; pixels match the resident session's render."""
-    from hmrt_tpu.api.tiled import TileSceneCache
+    from hmrt.api.tiled import TileSceneCache
 
     terr = H.procedural_terrain(65, seed=3)
-    cfg = H.RenderConfig(width=96, height=64, backend="oracle")
+    cfg = H.RenderConfig(width=96, height=64)
     n = terr.shape[0]
     eye = (n * 0.5, -n * 0.2, float(terr.max()) + 6.0)
     cache = TileSceneCache(8)
     tiled = ViewerSession(None, cfg, eye=eye, yaw=math.pi / 2, pitch=-0.2,
                           speed=1.0, tiled=(terr, 32, cache))
-    resident = ViewerSession(H.make_scene(terr, pack=False), cfg, eye=eye,
+    resident = ViewerSession(H.make_scene(terr), cfg, eye=eye,
                              yaw=math.pi / 2, pitch=-0.2, speed=1.0)
     params = json.loads(tiled.state_json())
     a = _decode(tiled.render_frame_png(params))

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from hmrt_tpu.api.scene import make_scene
-from hmrt_tpu.core.renderer import render_frame
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.shading import shade as sh
-from hmrt_tpu.types import Camera, Light
+from hmrt.api.scene import make_scene
+from hmrt.core.renderer import render_frame
+from hmrt.config import RenderConfig
+from hmrt.shading import shade as sh
+from hmrt.types import Camera, Light
 
 
 def _flat(v, n=1):

@@ -1,23 +1,20 @@
-"""Multi-chip shard_map render == single-device render (SURVEY.md 4.4).
+"""Multi-device shard_map render == single-device render (SURVEY.md 4.4).
 
 Runs on 8 virtual CPU devices (conftest sets
 --xla_force_host_platform_device_count=8); mesh logic is device-count
-generic so this proves the collective/gather plumbing without a pod.
+generic so this proves the collective/gather plumbing without several
+cards. The `multi_device` fixture skips where there is only one device.
 """
 
-import jax
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.slow  # interpret/virtual-mesh renders; fast gate: -m "not slow"
-
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.core.renderer import render_frame
-from hmrt_tpu.distrib.mesh import make_mesh, render_frame_sharded, replicate_scene
+from hmrt.config import RenderConfig
+from hmrt.core.renderer import render_frame
+from hmrt.distrib.mesh import make_mesh, render_frame_sharded, replicate_scene
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_sharded_render_pixel_identical(scene64, camera64):
+def test_sharded_render_pixel_identical(multi_device, scene64, camera64):
     mesh = make_mesh()
     sc = replicate_scene(scene64, mesh)
     cfg = RenderConfig(width=64, height=64, aux_buffers=True)
@@ -32,8 +29,7 @@ def test_sharded_render_pixel_identical(scene64, camera64):
                                rtol=1e-6)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_sharded_full_features(scene64, camera64):
+def test_sharded_full_features(multi_device, scene64, camera64):
     mesh = make_mesh()
     sc = replicate_scene(scene64, mesh)
     cfg = RenderConfig(width=32, height=32, shading="phong", shadows=True,
@@ -44,67 +40,19 @@ def test_sharded_full_features(scene64, camera64):
                                atol=1e-6)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_sharded_pallas_band_path(scene64, camera64):
-    """The fused-kernel band path (row0-shifted raygen + gather) is pixel-
-    checked against the single-device kernel on the virtual CPU mesh —
-    with a band height (height/ndev) that is NOT a tile multiple, the
-    full-scale B5 shape (2160 rows / 8 chips = 270)."""
-    ndev = len(jax.devices())
-    mesh = make_mesh()
-    sc = replicate_scene(scene64, mesh)
-    H = 3 * ndev  # band of 3 rows: exercises the kernel's pad+crop
-    cfg = RenderConfig(width=48, height=H, shading="phong", shadows=True,
-                       aux_buffers=True)
-    fr_s = render_frame_sharded(sc, camera64, cfg, mesh, use_pallas=True)
-    from hmrt_tpu.kernels.raycast import render_frame_pallas
-    fr_1 = render_frame_pallas(scene64, scene64.packed, camera64, cfg,
-                               interpret=True)
-    np.testing.assert_array_equal(np.asarray(fr_s.hit), np.asarray(fr_1.hit))
-    # hits are exact; color tolerates float-ulp wiggle (rsqrt in the
-    # shading fuses differently across the two program shapes)
-    np.testing.assert_allclose(np.asarray(fr_s.color),
-                               np.asarray(fr_1.color), atol=2e-5)
-    np.testing.assert_allclose(np.asarray(fr_s.depth),
-                               np.asarray(fr_1.depth), rtol=1e-6)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_sharded_compact_band_path(scene64, camera64):
-    """The compact-backend band path (per-shard sort + march passes,
-    row0-shifted raygen) is pixel-checked against the single-device
-    compact render on the virtual CPU mesh (C27 at the production
-    backend)."""
-    ndev = len(jax.devices())
-    mesh = make_mesh()
-    sc = replicate_scene(scene64, mesh)
-    H = 4 * ndev
-    cfg = RenderConfig(width=64, height=H, shading="phong", shadows=True,
-                       backend="compact")
-    fr_s = render_frame_sharded(sc, camera64, cfg, mesh, use_pallas=True)
-    from hmrt_tpu.kernels.compact import render_frame_compact
-    fr_1 = render_frame_compact(scene64, scene64.packed, camera64, cfg,
-                                interpret=True)
-    np.testing.assert_array_equal(np.asarray(fr_s.hit), np.asarray(fr_1.hit))
-    np.testing.assert_allclose(np.asarray(fr_s.color),
-                               np.asarray(fr_1.color), atol=2e-5)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_uneven_height_raises(scene64, camera64):
+def test_uneven_height_raises(multi_device, scene64, camera64):
     mesh = make_mesh()
     with pytest.raises(ValueError):
         render_frame_sharded(scene64, camera64,
                              RenderConfig(width=16, height=17), mesh)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_flythrough_frame_sharded(scene64):
+def test_flythrough_frame_sharded(multi_device, scene64):
     """Frame-axis DP (render_flythrough_sharded): the sharded animation
     stack equals per-frame single-device renders, frame for frame."""
-    from hmrt_tpu.api.flythrough import frame_camera, orbit_flythrough
-    from hmrt_tpu.distrib.mesh import render_flythrough_sharded
-    ndev = len(jax.devices())
+    from hmrt.api.flythrough import frame_camera, orbit_flythrough
+    from hmrt.distrib.mesh import render_flythrough_sharded
+    ndev = len(multi_device)
     mesh = make_mesh(axis_name="frames")
     sc = replicate_scene(scene64, mesh)
     zmax = float(np.asarray(scene64.heights).max())
@@ -117,40 +65,16 @@ def test_flythrough_frame_sharded(scene64):
     for i in (0, 1, ndev, F - 1):  # first/second local frame, chip 1, last
         fr = render_frame(scene64, frame_camera(cams, i), cfg)
         # float-ulp wiggle: XLA fuses the shade differently under
-        # scan+shard_map (same note as the band-path tests above; the
-        # Phong rsqrt/pow chain amplifies to a few ulp on grazing pixels)
+        # scan+shard_map (the Phong rsqrt/pow chain amplifies to a few ulp
+        # on grazing pixels)
         np.testing.assert_allclose(stack[i], np.asarray(fr.color), atol=1e-5)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_flythrough_frame_sharded_kernel(scene64):
-    """Frame-axis DP at the production backend: scan-of-compact inside
-    shard_map (interpret mode on the CPU mesh) == single-device compact."""
-    from hmrt_tpu.api.flythrough import frame_camera, orbit_flythrough
-    from hmrt_tpu.distrib.mesh import render_flythrough_sharded
-    from hmrt_tpu.kernels.compact import render_frame_compact
-    ndev = len(jax.devices())
+def test_flythrough_uneven_frames_raises(multi_device, scene64):
+    from hmrt.api.flythrough import orbit_flythrough
+    from hmrt.distrib.mesh import render_flythrough_sharded
     mesh = make_mesh(axis_name="frames")
-    sc = replicate_scene(scene64, mesh)
-    zmax = float(np.asarray(scene64.heights).max())
-    cams = orbit_flythrough(64, zmax, ndev)
-    cfg = RenderConfig(width=32, height=16, shading="phong", shadows=True,
-                       backend="compact")
-    stack = np.asarray(render_flythrough_sharded(sc, cams, cfg, mesh,
-                                                 use_pallas=True))
-    i = ndev // 2
-    fr = render_frame_compact(scene64, scene64.packed,
-                              frame_camera(cams, i), cfg, interpret=True,
-                              unroll=1)
-    np.testing.assert_allclose(stack[i], np.asarray(fr.color), atol=2e-5)
-
-
-@pytest.mark.skipif(len(jax.devices()) < 2, reason="needs multiple devices")
-def test_flythrough_uneven_frames_raises(scene64):
-    from hmrt_tpu.api.flythrough import orbit_flythrough
-    from hmrt_tpu.distrib.mesh import render_flythrough_sharded
-    mesh = make_mesh(axis_name="frames")
-    cams = orbit_flythrough(64, 10.0, len(jax.devices()) + 1)
+    cams = orbit_flythrough(64, 10.0, len(multi_device) + 1)
     with pytest.raises(ValueError):
         render_flythrough_sharded(scene64, cams,
                                   RenderConfig(width=16, height=16), mesh)

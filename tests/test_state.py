@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from hmrt_tpu.api.scene import make_scene
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.io.state import load_state, save_state
-from hmrt_tpu.io.heightmap import procedural_terrain
-from hmrt_tpu.types import Camera, Light
+from hmrt.api.scene import make_scene
+from hmrt.config import RenderConfig
+from hmrt.io.state import load_state, save_state
+from hmrt.io.heightmap import procedural_terrain
+from hmrt.types import Camera, Light
 
 
 def test_state_roundtrip(tmp_path):

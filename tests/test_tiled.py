@@ -9,12 +9,12 @@ ray origins by exact small integers, so intersection t's match to f32 ulp.
 import numpy as np
 import pytest
 
-from hmrt_tpu.api.tiled import _tile_axis, render_frame_tiled
-from hmrt_tpu.api.scene import make_scene
-from hmrt_tpu.config import RenderConfig
-from hmrt_tpu.core.renderer import render_frame
-from hmrt_tpu.io.heightmap import procedural_terrain
-from hmrt_tpu.types import Camera
+from hmrt.api.tiled import _tile_axis, render_frame_tiled
+from hmrt.api.scene import make_scene
+from hmrt.config import RenderConfig
+from hmrt.core.renderer import render_frame
+from hmrt.io.heightmap import procedural_terrain
+from hmrt.types import Camera
 
 
 def _cam(h):
@@ -54,7 +54,7 @@ def test_tiled_from_rawmap(tmp_path):
     h = procedural_terrain(100, seed=9)
     path = str(tmp_path / "m.raw")
     h.astype(np.float32).tofile(path)
-    from hmrt_tpu.io.native import RawTileMap
+    from hmrt.io.native import RawTileMap
     cam = _cam(h)
     cfg = RenderConfig(width=32, height=24)
     mono = render_frame(make_scene(h), cam, cfg)
@@ -125,8 +125,8 @@ def test_tiled_culling_all_sky():
     assert stats["tiles_rendered"] == 0, stats
     mono = render_frame(make_scene(h), cam, cfg)
     assert not bool(np.asarray(tiled.hit).any())
-    # sky gradient only; computed by two separately-compiled programs —
-    # on TPU the compiled rounding differs by ~1 ulp (measured 1.1e-6)
+    # sky gradient only; computed by two separately-compiled programs,
+    # whose rounding may differ by ~1 ulp
     np.testing.assert_allclose(np.asarray(tiled.color),
                                np.asarray(mono.color), atol=5e-6)
 
@@ -151,7 +151,7 @@ def test_tiled_shadow_culling_skips_tiles():
 def test_tiled_shadows_low_sun_crosses_tiles():
     """A low sun throws occlusion across tile boundaries — the case a
     naive per-tile shadow march would get wrong."""
-    from hmrt_tpu.types import Light
+    from hmrt.types import Light
 
     side, tile = 129, 64
     h = procedural_terrain(side, seed=11)
@@ -169,7 +169,7 @@ def test_tile_scene_cache_pixel_neutral_and_reuses():
     to the uncached render, reuses primary scenes for the shadow sweep
     (fewer builds than marches+renders), and a repeated frame through a
     persistent cache builds zero new scenes."""
-    from hmrt_tpu.api.tiled import TileSceneCache
+    from hmrt.api.tiled import TileSceneCache
 
     side, tile = 129, 64
     h = procedural_terrain(side, seed=7)
@@ -201,7 +201,7 @@ def test_tile_scene_cache_pixel_neutral_and_reuses():
 def test_tile_scene_cache_bounded():
     """An LRU bound below the tile count still renders correctly and
     never holds more than max_tiles scenes."""
-    from hmrt_tpu.api.tiled import TileSceneCache
+    from hmrt.api.tiled import TileSceneCache
 
     side, tile = 129, 32  # 16 tiles
     h = procedural_terrain(side, seed=7)

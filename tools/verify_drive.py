@@ -3,11 +3,15 @@
 (the .claude/skills/verify recipe, scripted): render the recipe frame,
 write the PNG, and run the skill's probe set. Prints one summary line
 per check; exits nonzero on any failure."""
+import os
 import sys
+import tempfile
 
 import numpy as np
 
-import hmrt_tpu as H
+import hmrt as H
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
@@ -26,8 +30,10 @@ def main():
     print(f"main frame: hit_frac={hitf:.3f} finite+bounded={bool(ok)}",
           flush=True)
     assert ok and 0.25 <= hitf <= 0.75, (hitf, ok)
-    from hmrt_tpu.io.image import write_png
-    write_png("/tmp/verify_out.png", col)
+    from hmrt.io.image import write_png
+    png = os.path.join(tempfile.gettempdir(), "verify_out.png")
+    write_png(png, col)
+    print(f"wrote {png}", flush=True)
 
     # probe: camera under the terrain — must terminate, majority hits
     # (rays that exit the box sides below the surface are legitimate
@@ -60,7 +66,7 @@ def main():
     assert same and cdiff < 5e-5
 
     # driver hook: entry() compiles and runs
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as g
     fn, a = g.entry()
     jax.block_until_ready(fn(*a))
